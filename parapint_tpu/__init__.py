@@ -1,10 +1,11 @@
-"""parapint_tpu — a TPU-native structured-NLP interior-point framework.
+"""parapint_tpu — a JAX structured-NLP interior-point framework.
 
 A from-scratch re-design of the capabilities of sandialabs/parapint
 (parallel primal-dual interior-point solution of block-structured NLPs:
 dynamic optimization via time-block decomposition and two-stage stochastic
 programs via scenario decomposition, with an explicit Schur-complement
-decomposition of the block-bordered KKT system) for TPUs:
+decomposition of the block-bordered KKT system) for accelerators, here an
+NVIDIA H100:
 
 - Modeling/AD: NLP models are pure JAX functions; gradients, Jacobians and
   the Hessian of the Lagrangian come from ``jax.grad``/``jax.jacfwd``/
@@ -14,8 +15,8 @@ decomposition of the block-bordered KKT system) for TPUs:
   and factorized with a batched blocked LDL^T kernel that reads the inertia
   off D (replacing HSL MA27 / MUMPS, /root/reference/parapint/linalg/).
 - Parallelism: blocks are sharded over a ``jax.sharding.Mesh`` axis; the
-  Schur complement is reduced with ``psum`` over ICI and factorized
-  redundantly on every chip (replacing mpi4py collectives,
+  Schur complement is reduced with ``psum`` (NCCL between GPUs) and
+  factorized redundantly on every device (replacing mpi4py collectives,
   /root/reference/parapint/linalg/schur_complement/mpi_explicit_schur_complement.py).
 
 The interior-point algorithm itself (``ip_solve``) matches the reference's
@@ -26,15 +27,15 @@ convergence scaling; /root/reference/parapint/algorithms/interior_point.py).
 import jax as _jax
 
 # The interior-point method genuinely needs double precision near convergence
-# (tol=1e-8 per the reference defaults).  TPU f64 is emulated but fully
-# supported by XLA:TPU; mixed-precision fast paths live in parapint_tpu.ops.
+# (tol=1e-8 per the reference defaults); Hopper runs f64 natively.
+# Mixed-precision fast paths live in parapint_tpu.ops.
 _jax.config.update("jax_enable_x64", True)
 
-# On TPU, JAX's default matmul precision multiplies f32 operands in bf16.
-# Factorizations are not neural-net matmuls: bf16 products destroy pivot
-# signs (inertia) and make iterative refinement diverge.  "highest" selects
-# the multi-pass f32 MXU path (and exact f64 emulation), which the whole
-# linalg layer assumes.
+# On Hopper, JAX's default matmul precision lets f32 products run in TF32
+# (a 10-bit mantissa, about three decimal digits).  Factorizations are not
+# neural-net matmuls: such products destroy pivot signs (inertia) and make
+# iterative refinement diverge.  "highest" keeps f32 products in full f32,
+# which the whole linalg layer assumes.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
 from parapint_tpu.options import (

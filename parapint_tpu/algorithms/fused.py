@@ -5,9 +5,8 @@ semantics, /root/reference/parapint/algorithms/interior_point.py:405-631)
 but with the ENTIRE solve — outer iteration loop, barrier update,
 inertia-correction retry loop, convergence tests — expressed as
 ``lax.while_loop``s so the whole solve is one XLA computation: one dispatch,
-one result readback.  This is the production path on TPU, where each
-host<->device round trip costs ~tens of milliseconds; the Python-loop
-``ip_solve`` remains the debuggable/loggable variant with identical
+one result readback.  This is the production path: no host<->device
+round trip per iteration; the Python-loop ``ip_solve`` remains the debuggable/loggable variant with identical
 numerics.
 
 Differences from the Python loop (both documented, both benign):

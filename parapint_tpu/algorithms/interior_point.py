@@ -14,7 +14,7 @@ functional interface/solver protocols of this package:
   like the reference's regularize_equality_gradient / regularize_hessian
   calls (:363-400 with interface.py:590-619),
 - memory-reallocation retry protocol (:634-652) — a no-op for the built-in
-  dense TPU solvers but preserved for solver parity.
+  dense device solvers but preserved for solver parity.
 
 Device/host split: all linear algebra and evaluation is jitted on device;
 the Python loop only moves a handful of scalars per iteration (convergence

@@ -2,7 +2,7 @@
 
 ``import parapint_tpu.compat as parapint`` gives user code the reference's
 public names (/root/reference/parapint/*/__init__.py) mapped onto this
-framework's TPU-native classes, for near-drop-in porting:
+framework's JAX classes, for near-drop-in porting:
 
     import parapint_tpu.compat as parapint
     options = parapint.algorithms.IPOptions()
@@ -40,7 +40,7 @@ def _warn_unmapped(name, kind, keys):
     if keys:
         warnings.warn(
             f"{name}: {kind} options {sorted(keys)} have no equivalent on "
-            f"the TPU dense factorization and are ignored; see "
+            f"the dense device factorization and are ignored; see "
             f"DenseLDLSolver for the available knobs",
             stacklevel=3,
         )
@@ -53,7 +53,7 @@ class InteriorPointMA27Interface(_DenseLDLSolver):
     Option mapping (ma27_interface.py:36-47, 205-256):
 
     - ``cntl_options[1]`` (pivot threshold u): the unpivoted equilibrated
-      TPU factorization has no pivot order to steer; its stability comes
+      device factorization has no pivot order to steer; its stability comes
       from Ruiz equilibration + (adaptive) iterative refinement.  The value
       is recorded (``get_cntl``) and any u > 0 keeps refinement enabled.
     - ``icntl_options`` are MA27 workspace/printing controls: recorded,
@@ -209,7 +209,7 @@ class MumpsInterface(_DenseLDLSolver):
 class SchurComplementLinearSolver(_SchurComplementSolver):
     """Reference ``parapint.linalg.SchurComplementLinearSolver``
     (explicit_schur_complement.py:16).  The reference takes one solver
-    object per diagonal block; on TPU the blocks are factored by one
+    object per diagonal block; here the blocks are factored by one
     batched kernel, so per-block solver objects are accepted for signature
     compatibility but only the schur_complement_solver is used."""
 
@@ -232,7 +232,7 @@ class MPISchurComplementLinearSolver(_ShardedSchurComplementSolver):
     ):
         if mesh is None:
             raise ValueError(
-                "MPISchurComplementLinearSolver requires mesh= (the TPU "
+                "MPISchurComplementLinearSolver requires mesh= (the JAX "
                 "analogue of the MPI communicator)"
             )
         super().__init__(

@@ -1,6 +1,6 @@
 """Dynamic (time-block decomposition) Schur-complement interior-point interface.
 
-TPU-native counterpart of the reference's
+JAX counterpart of the reference's
 ``DynamicSchurComplementInteriorPointInterface`` / ``MPIDynamic...``
 (/root/reference/parapint/interfaces/schur_complement/sc_ip_interface.py:13-1025,
 mpi_sc_ip_interface.py:32-270): the time horizon [start_t, end_t] is split
@@ -11,7 +11,7 @@ linking constraints
     backward (block i > 0):    x_i[start_state_idx] - c_{i-1} = 0
     forward  (block i < N-1):  x_i[end_state_idx]   - c_i     = 0
 
-Design differences from the reference (deliberate, TPU-first):
+Design differences from the reference (deliberate, device-first):
 
 - All N blocks are one uniform batched model family (see
   :mod:`parapint_tpu.interfaces.blocked`); block 0's initial conditions are
@@ -28,7 +28,7 @@ Design differences from the reference (deliberate, TPU-first):
 
 Serial and parallel are the same class: pass a
 :class:`ShardedSchurComplementSolver` (and optionally ``mesh=``) to run with
-the block axis sharded over chips.
+the block axis sharded over devices.
 """
 
 import dataclasses

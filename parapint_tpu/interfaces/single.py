@@ -1,6 +1,6 @@
 """Single-NLP interior-point interface (dense KKT).
 
-The TPU-native counterpart of the reference ``InteriorPointInterface``
+The JAX counterpart of the reference ``InteriorPointInterface``
 (/root/reference/parapint/interfaces/interface.py:250-679): wraps one NLP,
 builds the 4x4 symmetric primal-dual KKT system and its rhs with barrier
 terms, and recovers the bound-dual deltas in closed form after the solve.

@@ -1,6 +1,6 @@
 """Two-stage stochastic Schur-complement interior-point interface.
 
-TPU-native counterpart of the reference's
+JAX counterpart of the reference's
 ``StochasticSchurComplementInteriorPointInterface`` / ``MPIStochastic...``
 (/root/reference/parapint/interfaces/schur_complement/sc_ip_interface.py:1028-1849,
 mpi_sc_ip_interface.py:273-498): each scenario is one block; the coupling

@@ -9,8 +9,8 @@ dimension is bounded by sparsity, not nk^2.  The dense batched LDL^T of
 and flop-infeasible for the reference's own flagship scaling knob (Burgers
 ``--nfe_x`` beyond ~100, /root/reference/parapint/examples/burgers.py:14-20).
 
-The TPU-native answer is not a multifrontal code (pointer-chasing
-elimination trees are hostile to the MXU); it is to exploit the structure
+The answer here is not a multifrontal code (pointer-chasing
+elimination trees are hostile to batched dense hardware); it is to exploit the structure
 the PDE families actually have: under a bandwidth-reducing, constraint-
 after-its-variables ordering (computed once per problem on the host, see
 :mod:`parapint_tpu.interfaces.structured` banded mode), each per-block KKT
@@ -19,7 +19,7 @@ into ts x ts tiles (ts >= p) IS block-tridiagonal, and a block-tridiagonal
 symmetric-indefinite matrix factors by a batched block-Thomas LDL^T sweep:
 
 - m = nk/ts sequential tile steps, each a *batched* (N, ts, ts) LDL^T
-  (the existing fused factor kernels) plus two batched MXU matmuls —
+  (the existing fused factor kernels) plus two batched matmuls —
   O(N * nk * ts^2) total work and O(N * nk * ts) memory versus the dense
   path's O(N * nk^3) / O(N * nk^2).
 - The sweep is sequential in tiles (unlike the coupling solver's cyclic
@@ -145,7 +145,7 @@ def thomas_factor_batched(
     zero_c = jnp.zeros((N, ts, ts), dtype=dt)
     # the sweep is short (m = nk/ts ~ 8-16 steps); full unroll removes the
     # per-step loop-control latency and lets XLA overlap the independent
-    # pieces of adjacent steps (round-5 latency work)
+    # pieces of adjacent steps
     _, (tinv_seq, inert_seq, stat_seq) = lax.scan(
         tile_step, zero_c, (d_seq, u_seq), unroll=min(m, 8)
     )
@@ -250,14 +250,13 @@ class BandedSchurFactor:
 
 
 def _permute_cols(x: jax.Array, perm: jax.Array) -> jax.Array:
-    """out[:, i] = x[:, perm[i]] via one-hot MXU matmuls — BIT-EXACT.
+    """out[:, i] = x[:, perm[i]] via one-hot matmuls — BIT-EXACT.
 
-    TPU gathers along the lane (last) axis run at ~10 ns/element on the
-    scalar core (round-5 chip A/B: 1.63 ms per (64, 922) f64 permutation);
-    a one-hot selection matmul at precision="highest" is exact (products
-    are x*1 or x*0, each row sums one nonzero) and measured 0.58 ms
-    including the f64 3-way f32 split (hi/mid/lo cover 72 >= 53 mantissa
-    bits, so the recombination is the original double).  BIT-EXACT for
+    A one-hot selection matmul at precision="highest" is exact (products
+    are x*1 or x*0, each row sums one nonzero), with the f64 input split
+    3 ways into f32 (hi/mid/lo cover 72 >= 53 mantissa bits, so the
+    recombination is the original double).  Whether this beats a plain
+    gather on the GPU has not been measured.  BIT-EXACT for
     components |x| >= ~1e-23; below that the lo (then mid) split
     underflows the f32 subnormal range: relative error <= ~1e-12 down to
     |x| ~ 1e-29, and <= 2^-23 (~1e-7 relative, absolute <= |x| * 2^-23)
@@ -304,12 +303,9 @@ def tridiag_tiles_matvec(diag_t, upper_t, x):
     factorization consumes: y_g = D_g x_g + U_g x_{g+1} + U_{g-1}^T x_{g-1}.
 
     diag_t (N, m, ts, ts), upper_t (N, m-1, ts, ts), x (N, m, ts) or
-    (N, m, ts, k).  Three batched einsums total — the per-diagonal shifted
-    form (:func:`sym_banded_matvec`) issues ~2(p+1) dependent vector ops,
-    which at p ~ 67 costs ~2.5 ms/matvec in pure op latency on the chip
-    (round-5 sweep); this form measured the refinement probe down from
-    5.0 ms to sub-ms.  Also the f64 refinement matvec path: emulated-f64
-    batched matmuls beat 2(p+1) emulated-f64 vector ops.
+    (N, m, ts, k).  Three batched einsums total, where the per-diagonal
+    shifted form (:func:`sym_banded_matvec`) issues ~2(p+1) dependent
+    vector ops.  Also the f64 refinement matvec path.
     """
     vec = x.ndim == 3
     if vec:
@@ -400,7 +396,7 @@ class BandedSchurComplementSolver(LinearSolver):
 
     Consumes a :class:`BandedLocalBlockKKT` (produced by the structured
     interfaces in ``block_form="banded"`` mode).  Per-block memory is
-    O(nk * ts) and per-block factor work O(nk * ts^2) — the TPU-native
+    O(nk * ts) and per-block factor work O(nk * ts^2) — the batched
     equivalent of the reference's MA27 sparse capability envelope for
     banded (PDE-discretization) block families.
 
@@ -580,8 +576,8 @@ class BandedSchurComplementSolver(LinearSolver):
         with jax.named_scope("banded_sc.sc_back_solve"):
             # coupling solve at the FACTOR precision: the block part already
             # runs f32 (thomas tinv) and the refinement loop owns the f64
-            # story, so an emulated-f64 CR sweep here (~55 small f64
-            # matvecs) buys nothing — round-5 trace finding
+            # story, so an f64 CR sweep here (~55 small f64 matvecs) buys
+            # nothing
             fdt = fact.thomas.tinv.dtype
             y = self.sc_solver.solve(fact.sc_fact, sc_rhs.astype(fdt))
         with jax.named_scope("banded_sc.back_solve"):
@@ -780,7 +776,7 @@ class BandedSchurComplementSolver(LinearSolver):
 
 class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
     """Banded per-block factorization with the block axis sharded over a
-    mesh axis — the multi-chip MA27-envelope path: each shard runs the
+    mesh axis — the multi-device MA27-envelope path: each shard runs the
     block-Thomas sweep on its owned blocks' bands, the Schur complement is
     psum-reduced and factorized replicated (identical math to
     :class:`parapint_tpu.linalg.sharded_schur.ShardedSchurComplementSolver`,
@@ -974,7 +970,7 @@ class ShardedBandedSchurComplementSolver(BandedSchurComplementSolver):
                     )
                 sc_rhs = r.coupling - lax.psum(contrib, ax)
                 # factor-precision coupling solve (see the serial
-                # _solve_once round-5 note)
+                # _solve_once note)
                 y = self.sc_solver.solve(
                     sc_fact, sc_rhs.astype(thomas.tinv.dtype)
                 )

@@ -32,7 +32,7 @@ class LinearSolver(ABC):
     def symbolic(self, kkt: Any) -> LinearSolverResults:
         """Record structural information (shapes / padding).
 
-        Dense TPU factorizations are structure-oblivious, so this is mostly
+        Dense device factorizations are structure-oblivious, so this is mostly
         a validation step; it exists for protocol parity with the
         reference's ``do_symbolic_factorization``.
         """
@@ -68,7 +68,7 @@ class LinearSolver(ABC):
     def increase_memory_allocation(self, factor: float) -> None:
         """Reference protocol hook (base_linear_solver_interface.py:39).
 
-        Dense TPU factorizations have statically-shaped workspaces, so the
+        Dense device factorizations have statically-shaped workspaces, so the
         built-in solvers never report ``not_enough_memory`` and this is a
         no-op; kept so the algorithm's retry loop is identical.
         """

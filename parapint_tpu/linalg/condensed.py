@@ -15,7 +15,7 @@ in the quasi-definite [y, nu, q, lam] ordering::
 with A a vertical stack of n_mult banded (n_q x n_q) matrices and P the
 selector of the first n_t entries of q.  A dense batched factorization is
 O(nk^2) memory — hopeless at this scale.  Instead of translating MA27's
-elimination trees (pointer-chasing, MXU-hostile), this solver eliminates
+elimination trees (pointer-chasing, hostile to batched dense hardware), this solver eliminates
 y and nu *analytically*::
 
     y  = A q + b_nu,        nu = b_y - 2 y,
@@ -43,7 +43,7 @@ A and P are shared across blocks (the reference harness builds ONE A,
 create_model.py:79-91); per-block data is the right-hand side.  The
 per-block solve is a handful of banded stencils + one batched
 cyclic-reduction solve, so blocks of *millions* of variables run on one
-chip.
+device.
 """
 
 import dataclasses

@@ -3,12 +3,12 @@
 - :class:`DenseLDLSolver`: unpivoted blocked LDL^T with inertia read off D.
   This is the workhorse (the role of HSL MA27 / MUMPS,
   /root/reference/parapint/linalg/ma27_interface.py, mumps_interface.py) and
-  runs in f64 on TPU.
+  runs in f64 on the device.
 - :class:`DenseLUSolver`: LU factorization with optional inertia via a dense
   symmetric eigendecomposition — the "always available" test backend, the
   role of the reference's ``ScipyInterface``
-  (/root/reference/parapint/linalg/scipy_interface.py:11-67).  Note XLA:TPU
-  only implements f32 LU, so this backend is primarily for CPU tests.
+  (/root/reference/parapint/linalg/scipy_interface.py:11-67), primarily
+  for CPU tests.
 """
 
 import dataclasses
@@ -48,20 +48,19 @@ class DenseLDLSolver(LinearSolver):
 
     Parameters
     ----------
-    block_size: panel width for the blocked factorization (128 = TPU lane
-        width; use smaller for tiny systems).
+    block_size: panel width for the blocked factorization (use smaller
+        for tiny systems).
     zero_tol: pivot threshold below which a pivot counts as zero (default
         0.0 = exact zeros only; see ops.ldl.ldl_inertia)
         (drives both the inertia's ``num_zero`` and the ``singular`` status).
-    explicit_inverse: store W = L^{-1} (built with MXU-only matmuls,
+    explicit_inverse: store W = L^{-1} (built with matmuls only,
         ops.ldl.ldl_winv) instead of the packed factor, turning back solves
-        into two thin matmuls — the fast path on TPU, where XLA's
-        triangular_solve is latency-bound.
+        into two thin matmuls instead of XLA's triangular_solve.
     refine_steps: iterative-refinement passes per solve in explicit-inverse
         mode (residuals against the original K recover direct-solve
         accuracy; default 1, use >=2 with factor_dtype=float32).
     factor_dtype: cast the matrix to this dtype for factorization (e.g.
-        jnp.float32 for mixed precision: fast MXU factorization, f64
+        jnp.float32 for mixed precision: fast f32 factorization, f64
         accuracy restored by the refinement passes).  None = input dtype.
     """
 
@@ -113,7 +112,7 @@ class DenseLDLSolver(LinearSolver):
         )
         inertia = jnp.stack([pos, neg, zero])
         if self.explicit_inverse:
-            W, dd = ldl_winv(LD, bs)
+            W, dd = ldl_winv(LD)
             return DenseLDLFactor(
                 LD=None,
                 W=W,

@@ -2,13 +2,13 @@
 
 The robust *pivoted* symmetric-indefinite factorization — the role HSL MA27
 plays in the reference (/root/reference/parapint/linalg/ma27_interface.py):
-handles saddle-point KKT matrices with zero diagonals that the unpivoted TPU
+handles saddle-point KKT matrices with zero diagonals that the unpivoted device
 kernel cannot factor without regularization, and reads the inertia off the
 1x1/2x2 pivot blocks.
 
 Host-side and NOT jit-traceable: use with the Python-loop
 :func:`parapint_tpu.algorithms.ip_solve` (CPU execution), as the correctness
-oracle for the TPU kernels, or as the ``schur_complement_solver`` of a
+oracle for the device kernels, or as the ``schur_complement_solver`` of a
 serial Schur solver running on CPU.  The batched entry points factor
 independent blocks in parallel with OpenMP.
 """

@@ -9,7 +9,7 @@ conjugate gradients on
     S y = r,   S = Q - sum_i A_i K_i^{-1} A_i^T
 
 whose matvec is one batched per-block K^{-1} application (two thin matmuls)
-plus a psum — the same cross-chip traffic pattern as the reference's SC rhs
+plus a psum — the same cross-device traffic pattern as the reference's SC rhs
 Allreduce (mpi_explicit_schur_complement.py:387), once per CG iteration.
 
 S is symmetric positive definite whenever the block factorizations carry

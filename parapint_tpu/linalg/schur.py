@@ -11,7 +11,7 @@ Solves the symmetric system (reference docstring,
 via S = Q - sum_i A_i K_i^{-1} A_i^T; factor each K_i and S; then
 x_i = K_i^{-1}(b_i - A_i^T y) with y = S^{-1}(b_c - sum_i A_i K_i^{-1} b_i).
 
-TPU-native design vs the reference:
+Design vs the reference:
 
 - All diagonal blocks are factored in ONE batched LDL^T kernel
   (vs a Python loop of per-block factorizations,
@@ -19,14 +19,14 @@ TPU-native design vs the reference:
 - S is formed with one batched multi-right-hand-side triangular solve
   K_i^{-1} A_i^T followed by a batched matmul — strictly better than the
   reference's column-by-column back-solve loop over nonzero border rows
-  (explicit_schur_complement.py:108-122); on TPU the multi-RHS solve and the
-  A_i * V_i contraction both run on the MXU.
+  (explicit_schur_complement.py:108-122); the multi-RHS solve and the
+  A_i * V_i contraction are both dense batched matmuls.
 - Blocks are uniform (padded) so the whole solver is shape-static; a
   per-block ``mask`` marks padding blocks (used when the number of logical
   blocks does not fill the batch) which contribute identity factors and are
   excluded from the inertia.
 
-The sharded (multi-chip) variant with identical math lives in
+The sharded (multi-device) variant with identical math lives in
 :mod:`parapint_tpu.linalg.sharded_schur`.
 """
 
@@ -295,25 +295,16 @@ def _factor_blocks_winv(
     if LD.dtype != apply_dtype:
         LD = LD.astype(apply_dtype)
         s = s.astype(apply_dtype)
-    W, d = jax.vmap(lambda ld: ldl_winv(ld, min(block_size, LD.shape[-1])))(LD)
+    W, d = jax.vmap(ldl_winv)(LD)
     return W, d, s, inertia, status
 
 
 def _winv_apply_batched(W, d, s, b):
     """K_i^{-1} b_i for a batch: b (N, nk) -> (N, nk).
 
-    On a real TPU backend this dispatches to the fused Pallas kernel
-    (ops/winv_apply.py): W is read from HBM exactly once per apply — the
-    XLA two-GEMV form reads it at least twice and can materialize W^T.
-    The XLA fallback upcasts a bf16-stored W to f32 at compute (the
-    convert fuses into the dot; HBM traffic stays bf16-sized).
+    Two batched GEMVs against W.  A bf16-stored W is upcast to f32 at
+    compute (the convert fuses into the dot; the reads stay bf16-sized).
     """
-    from parapint_tpu.ops import winv_apply as _wk
-
-    if W.dtype in (jnp.float32, jnp.bfloat16) and _wk.available():
-        # the kernel applies BOTH s-scalings internally; f64 W (Mosaic
-        # cannot lower f64 vectors) stays on the XLA path
-        return _wk.winv_apply_fused(W, d, s, b)
     cdt = jnp.float32 if W.dtype == jnp.bfloat16 else W.dtype
     Wc = W.astype(cdt)
     nk = b.shape[-1]
@@ -332,7 +323,7 @@ def _sc_contribution(LD: jax.Array, border: jax.Array, mask: jax.Array):
     """sum_i A_i K_i^{-1} A_i^T over the (local) batch of blocks."""
     # V_i = K_i^{-1} A_i^T : batched multi-RHS solve, (N, nk, nc)
     V = jax.vmap(lambda ld, a: ldl_solve(ld, a.T))(LD, border)
-    # contribution_i = A_i @ V_i ; masked sum over blocks (MXU contraction)
+    # contribution_i = A_i @ V_i ; masked sum over blocks (one contraction)
     return jnp.einsum(
         "bci,bik,b->ck", border, V, mask, preferred_element_type=border.dtype
     )
@@ -416,7 +407,7 @@ def _assemble_sc(S_loc, row_idx, nc: int, assembly: str, group_offset=None):
     (nc, nc) Schur complement.
 
     "scatter" works for any topology; "shared" and "chain" are scatter-free
-    specializations (TPU scatters serialize) for the two structures the
+    specializations (pure data movement instead of scatters) for the two structures the
     interfaces produce — see LocalBlockKKT.assembly.
     """
     if assembly == "shared":
@@ -525,8 +516,8 @@ def _border_apply_chain(border_loc, v, nc: int, group_offset=None):
 
     Rows [0, ns) of block b target coupling group b-1, rows [ns, 2ns)
     target group b (the dynamic-interface link layout); the scatter-add of
-    :func:`_border_apply_local` serializes on TPU (~4 ms at 64 blocks),
-    while these two shifted contiguous placements are pure data movement.
+    :func:`_border_apply_local` is replaced by two shifted contiguous
+    placements, pure data movement.
     Out-of-range rows (block 0 backward / last block forward, and the
     sharded case's halo) land in sacrificial border rows; their border_loc
     rows are all-zero by the link masks, so they contribute nothing.
@@ -534,10 +525,8 @@ def _border_apply_chain(border_loc, v, nc: int, group_offset=None):
     L = border_loc.shape[1]
     ns = L // 2
     ng = nc // ns
-    # batched GEMM form (not einsum "bli,bi->bl"): the TPU backend lowered
-    # the einsum with a chunked-reduction strategy measured at ~0.5 ms/call
-    # on the 64-block bench shape; the explicit (b,L,nk)@(b,nk,1) matmul is
-    # a plain MXU contraction (round-5 trace-driven fix)
+    # batched GEMM form (not einsum "bli,bi->bl"): the explicit
+    # (b,L,nk)@(b,nk,1) matmul is one plain batched contraction
     contrib = jnp.matmul(
         border_loc, v[:, :, None], preferred_element_type=v.dtype
     )[..., 0]
@@ -575,8 +564,7 @@ def _border_T_apply_chain(border_loc, y, group_offset=None):
     Nb, L, _ = border_loc.shape
     y_loc = _border_y_loc_chain(y, Nb, L, group_offset)
     # (b,1,L)@(b,L,nk) batched GEMM — see _border_apply_chain on why not
-    # einsum "bli,bl->bi" (chunked-reduction lowering, ~2.7 ms/iter on the
-    # round-5 trace vs a plain MXU matmul)
+    # einsum "bli,bl->bi"
     return jnp.matmul(
         y_loc[:, None, :], border_loc, preferred_element_type=y.dtype
     )[:, 0, :]
@@ -589,8 +577,7 @@ def _kkt_matvec(
     refinement).  With ``psum_axis`` set, the coupling part is reduced over
     the mesh axis (shard_map context).  With ``dtype`` set, all operands are
     cast first — the cheap low-precision residual probe of the adaptive
-    refinement (an f32 matvec costs ~10-20x less than the f64-emulated one
-    on TPU)."""
+    refinement (an f32 matvec moves half the bytes of the f64 one)."""
     diag, q = fact.diag, fact.q
     xb, xc = x.blocks, x.coupling
     border = fact.border
@@ -632,7 +619,7 @@ def _refine_probe(
     """f32 residual check: True when ||rhs - K x|| exceeds BOTH
     trigger * max(1, ||rhs||) and the probe's own measurement floor.
 
-    Runs entirely in f32 (cheap on TPU) — it only needs to detect gross
+    Runs entirely in f32 (cheap) — it only needs to detect gross
     solve failure, so a residual the f32 matvec cannot even resolve must
     not count as one.  The f32 matvec's error is ~eps_f32 * (|K| |x|): on
     ill-scaled KKTs (barrier terms spanning ~1e10) with O(1) rhs,
@@ -735,7 +722,7 @@ class SchurComplementSolver(LinearSolver):
         # the Burgers benchmark family converges with objective parity at
         # +1 IP iteration).
         self.w_store_dtype = w_store_dtype
-        # w_auto_gate (round-5, with w_store_dtype set + adaptive
+        # w_auto_gate (with w_store_dtype set + adaptive
         # refinement): keep the pre-cast W alongside; when the adaptive
         # refinement STALLS on the reduced-precision applies (the
         # kappa-hard case that previously reported status=error,

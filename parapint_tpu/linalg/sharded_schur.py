@@ -1,6 +1,6 @@
-"""Sharded (multi-chip) explicit Schur-complement solver.
+"""Sharded (multi-device) explicit Schur-complement solver.
 
-The TPU-native replacement for the reference's MPI Schur solver
+The JAX replacement for the reference's MPI Schur solver
 (/root/reference/parapint/linalg/schur_complement/mpi_explicit_schur_complement.py:128-452):
 
 - block -> rank round-robin ownership becomes sharding the leading block axis
@@ -75,7 +75,7 @@ class ShardedSchurComplementSolver(LinearSolver):
     returned :class:`SchurFactor` so the refinement residual matvec can run
     — in LD mode (explicit_inverse=False) as well as W mode.  That is one
     extra (N, nk, nk) buffer per live factorization plus residual-probe
-    matvecs per solve.  Pass ``refine_steps=0`` to drop both (the pre-round-3
+    matvecs per solve.  Pass ``refine_steps=0`` to drop both (the former
     LD-mode behavior) when the unrefined factor accuracy is validated for
     the problem.
     """

@@ -6,7 +6,7 @@ For dynamic (time-chain) problems the Schur complement S is block
 group per block boundary): block i couples only boundaries i-1 and i.  The
 reference factorizes S as a generic sparse matrix, redundantly on every rank
 (/root/reference/parapint/linalg/schur_complement/mpi_explicit_schur_complement.py:352-360);
-round 1 of this package factored it dense — O(nc^3) flops replicated per
+a dense factorization is — O(nc^3) flops replicated per
 shard, the dominant cost beyond ~64 blocks.  This module replaces that with
 block cyclic reduction:
 
@@ -14,7 +14,7 @@ block cyclic reduction:
   block-tridiagonal matrix on the odd tiles (the evens are mutually
   decoupled), so log2(m) *batched* elimination levels reduce m tiles to one.
   Each level is a handful of batched ns x ns matmuls + one batched LDL^T —
-  exactly the shape of work the MXU wants, with no O(m)-length sequential
+  exactly the shape of work batched hardware wants, with no O(m)-length sequential
   chain (a block-Thomas sweep would serialize m tiny factorizations).
 - Total cost O(m * ns^3) versus dense O((m*ns)^3): at 256 time blocks with
   ns ~ 49 this is a ~65000x flop reduction of the coupling factorization.
@@ -225,8 +225,7 @@ def cr_solve(fact: CRFactor, r: jax.Array) -> jax.Array:
         r = jnp.concatenate([r, jnp.zeros((M - m, ns), dtype=r.dtype)], axis=0)
 
     # All per-level contractions below are explicit batched GEMMs, not
-    # einsum vector forms — see linalg/schur.py's round-5 note on the TPU
-    # backend's chunked-reduction einsum lowering.
+    # einsum vector forms (see _border_apply_chain in linalg/schur.py).
     def _mv(A, v):  # (k, ns, ns) @ (k, ns) -> (k, ns)
         return jnp.matmul(
             A.astype(v.dtype), v[:, :, None], preferred_element_type=v.dtype
@@ -265,7 +264,7 @@ def cr_solve(fact: CRFactor, r: jax.Array) -> jax.Array:
         corr = _mtv(uo_shift, xk_pad[:E]) + _mv(ue_ext, xk_pad[1 : E + 1])
         xe = z - _mv(tinv, corr)
         # interleave [xe_0, xk_0, xe_1, xk_1, ..., xe_K]: strided .at[::2]
-        # scatters serialize on TPU; a stack+reshape is pure data movement
+        # scatters; a stack+reshape is pure data movement
         xk_ext = jnp.concatenate([xk, jnp.zeros((1, ns), dtype=xk.dtype)])
         x = jnp.stack([xe, xk_ext], axis=1).reshape(-1, ns)[: 2 * K + 1]
     x = x[:m]

@@ -5,7 +5,7 @@
 // (/root/reference/parapint/linalg/ma27_interface.py): a robust *pivoted*
 // factorization of symmetric indefinite KKT systems with an inertia
 // readout, used as (a) the host/CPU execution path, and (b) the
-// correctness oracle for the unpivoted TPU kernel in
+// correctness oracle for the unpivoted device kernel in
 // parapint_tpu/ops/ldl.py.  The batched entry point factors independent
 // blocks in parallel with OpenMP, mirroring the reference's per-rank
 // distribution of diagonal blocks.

@@ -1,4 +1,4 @@
-"""Dense TPU compute kernels (factorizations, solves)."""
+"""Dense device compute kernels (factorizations, solves)."""
 
 from parapint_tpu.ops.ldl import (
     ldl_factor,

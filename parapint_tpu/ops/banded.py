@@ -5,8 +5,9 @@ MA27 (multifrontal) — per-block KKTs built from banded matrices
 (/root/reference/parapint/examples/performance/schur_complement/create_model.py:23-47,
 utils.py:24-31, defaults n_q_per_block=5000, n_y_multiplier=120 in
 main.py:63-73).  A dense batched factorization cannot touch that scale
-(nk^2 memory).  The TPU-native answer is not a general sparse multifrontal
-code (pointer-chasing elimination trees are hostile to the MXU); it is to
+(nk^2 memory).  The answer here is not a general sparse multifrontal
+code (pointer-chasing elimination trees are hostile to batched dense
+hardware); it is to
 exploit the *structure*: banded operators stay banded, and a symmetric
 banded matrix with half-bandwidth p tiled into ts x ts tiles (ts >= p) IS a
 block-tridiagonal matrix — which :mod:`parapint_tpu.linalg.tridiag` already
@@ -134,9 +135,8 @@ def sym_band_to_tridiag_tiles(sym_bands: jax.Array, ts: int):
     if n % ts != 0:
         raise ValueError(f"n={n} not a multiple of tile size {ts}")
     m = n // ts
-    # Scatter-free skew construction (round 5: the original per-band
-    # .at[].add loop issued ~2.5(p+1) scatter-adds = ~1.5 ms per numeric on
-    # the 64-block bench; pads/reshapes are pure data movement).
+    # Scatter-free skew construction (a per-band .at[].add loop issues
+    # ~2.5(p+1) scatter-adds; pads/reshapes are pure data movement).
     #
     # Per tile g, X[b, e] = G[g*ts+b+e, g*ts+b].  Row b of the dense tile
     # column b is X[b, :] shifted DOWN by b — the standard skew trick:

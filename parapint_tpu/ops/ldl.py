@@ -6,7 +6,7 @@ factor a symmetric indefinite matrix and report its inertia (the number of
 positive/negative/zero pivots) so the interior-point loop can run its
 inertia-correction scheme (/root/reference/parapint/algorithms/interior_point.py:363-400).
 
-Design notes (TPU-first):
+Design notes:
 
 - The factorization is *unpivoted* LDL^T with 1x1 pivots.  Interior-point KKT
   matrices in the [H + Sigma_x, 0, Jeq^T, Jineq^T; ...] ordering are
@@ -17,15 +17,15 @@ Design notes (TPU-first):
   adds the regularization — exactly the failure/recovery contract MA27 has
   with the reference algorithm.
 - Right-looking blocked algorithm: the O(n^3) trailing update is a plain
-  matmul (MXU); the O(n*b^2) panel solve is a batched triangular solve
-  (native XLA:TPU); only the small b x b diagonal block factorization is a
-  sequential loop of rank-1 VPU updates.
+  matmul; the O(n*b^2) panel solve is a matmul against the explicit
+  inverse of the small unit-lower panel factor; only the small b x b
+  diagonal block factorization is a sequential loop of rank-1 updates
+  (one Triton kernel per batched panel step on the GPU, ops/pallas_ldl.py).
 - Everything is shape-static and `vmap`-able: `batched_ldl_factor` factors
   [N, n, n] blocks in one XLA computation (the per-block factorizations the
   reference distributes over MPI ranks become one batched kernel here).
-- f64 by default (TPU f64 is emulated by XLA but fast in practice); a
-  mixed-precision path (f32 factor + f64 iterative refinement) lives in
-  :mod:`parapint_tpu.linalg.refine`.
+- f64 by default; a mixed-precision path (f32 factor + f64 iterative
+  refinement) lives in :mod:`parapint_tpu.linalg.refine`.
 """
 
 import functools
@@ -120,88 +120,26 @@ def _ldl_slab_batched_xla(A: jax.Array, r: int = 8) -> jax.Array:
 
 
 def _panel_factor(Akk: jax.Array) -> jax.Array:
-    """Base-case panel factorization, dispatched to the Pallas VMEM-resident
-    kernel on TPU (ops/pallas_ldl.py) and the pure-XLA loop elsewhere.
-    Pallas path is f32-only: Mosaic does not lower f64 vectors."""
-    from parapint_tpu.ops import pallas_ldl
-
-    # b <= 128: larger panels exceed the kernel's VMEM budget (the unrolled
-    # dataflow keeps O(b) column intermediates live)
-    if (
-        Akk.dtype == jnp.float32
-        and Akk.shape[-1] <= 128
-        and pallas_ldl.available()
-    ):
-        return pallas_ldl.ldl_panels(Akk[None])[0]
-    return _ldl_unblocked(Akk)
-
-
-_SUBST_BASE = 16
-
-
-def _unit_lower_inv_subst(L: jax.Array) -> jax.Array:
-    """Exact unrolled forward substitution: L^{-1} for unit lower-triangular
-    L of SMALL static size (..., r, r), any leading batch dims.
-
-    Row i of W solves L W = I sequentially: w_i = e_i - L[i, :i] @ W[:i].
-    Backward stable (unlike a truncated-series evaluation, each step only
-    combines already-exact rows with the row's own L entries); r steps of
-    tiny contractions — negligible next to the surrounding matmuls.
-    """
-    r = L.shape[-1]
-    eye = jnp.eye(r, dtype=L.dtype)
-    batch = L.shape[:-2]
-    rows = []
-    for i in range(r):
-        w = jnp.broadcast_to(eye[i], batch + (r,))
-        if i:
-            Wprev = jnp.stack(rows, axis=-2)  # (..., i, r)
-            li = L[..., i, :i]
-            w = w - jnp.einsum(
-                "...j,...jk->...k", li, Wprev, preferred_element_type=L.dtype
-            )
-        rows.append(w)
-    return jnp.stack(rows, axis=-2)
+    """Base-case panel factorization of one (b, b) block."""
+    return _panel_factor_batch(Akk[None])[0]
 
 
 def unit_lower_inv(L: jax.Array) -> jax.Array:
-    """Inverse of a unit lower-triangular matrix: static-halving block
-    recursion with an exact-substitution base case.
+    """Inverse of unit lower-triangular (..., n, n), any leading batch dims:
+    one batched triangular solve against the identity (backward stable).
 
-        [L11  0 ]^-1   [ W11           0  ]
-        [L21 L22]    = [-W22 L21 W11  W22 ]
-
-    All work above the (16-wide) base is MXU matmuls — the TPU-native
-    alternative to XLA's blocked triangular_solve (latency-bound on TPU).
-
-    STABILITY NOTE (round-5 fix): the previous implementation summed the
-    Neumann series I + N + N^2 + ... by repeated squaring.  That is exact
-    algebra (N nilpotent) but numerically UNSTABLE whenever intermediate
-    powers grow before annihilating: on the chain-coupled Schur
-    complements of the Burgers family, ||N^64|| reached ~1e20 while
-    ||L^{-1}|| ~ 4.5, so the doubling form lost ALL significant digits
-    (observed: 1e98-scale pivots downstream, cond(S) only 2e4).  Random
-    SPD test matrices have decaying powers and never exposed this.  The
-    block recursion only multiplies by computed inverses of sub-blocks —
-    error growth is bounded by cond-like factors, the standard
-    GPU/TPU-BLAS triangular-inversion tradeoff.
+    On the H100 it matches a recursive-halving inverse built from matmuls
+    at the hybrid path's (32, 1024, 1024) f32 and is at most 25 % slower at
+    other n = 1024 batches, is up to 2x faster at panel widths, and
+    compiles in a fraction of a second instead of ~10 s (PERF.md).  A
+    Neumann-series form (I + N + N^2 + ... by repeated squaring) must not
+    come back: on the chain-coupled Schur complements of the Burgers family
+    its intermediate powers reached ~1e20 while ||L^{-1}|| ~ 4.5.
     """
-    n = L.shape[-1]
-    if n <= _SUBST_BASE:
-        return _unit_lower_inv_subst(L)
-    h = max(_SUBST_BASE, ((n // 2 + 7) // 8) * 8)
-    if h >= n:
-        h = n - _SUBST_BASE
-    W11 = unit_lower_inv(L[:h, :h])
-    W22 = unit_lower_inv(L[h:, h:])
-    W21 = -jnp.matmul(
-        W22,
-        jnp.matmul(L[h:, :h], W11, preferred_element_type=L.dtype),
-        preferred_element_type=L.dtype,
+    eye = jnp.broadcast_to(jnp.eye(L.shape[-1], dtype=L.dtype), L.shape)
+    return lax.linalg.triangular_solve(
+        L, eye, left_side=True, lower=True, unit_diagonal=True
     )
-    top = jnp.concatenate([W11, jnp.zeros((h, n - h), dtype=L.dtype)], axis=1)
-    bottom = jnp.concatenate([W21, W22], axis=1)
-    return jnp.concatenate([top, bottom], axis=0)
 
 
 def ruiz_scale(A: jax.Array, iters: int = 3) -> jax.Array:
@@ -221,62 +159,15 @@ def ruiz_scale(A: jax.Array, iters: int = 3) -> jax.Array:
     return s
 
 
-def _unit_lower_inv_rec(L: jax.Array, bs: int) -> jax.Array:
-    """Recursive unit-lower-triangular inverse with static halving:
-
-        [L11  0 ]^-1   [ W11           0  ]
-        [L21 L22]    = [-W22 L21 W11  W22 ]
-
-    All slices static, all work matmuls; base case = Neumann doubling.
-    O(n^2 log n) memory traffic (vs O(n^2 * n/bs) for a block-column sweep).
-    """
-    n = L.shape[-1]
-    if n <= bs:
-        return unit_lower_inv(L)
-    h = ((n // 2 + bs - 1) // bs) * bs
-    if h >= n:
-        h = n - bs
-    W11 = _unit_lower_inv_rec(L[:h, :h], bs)
-    W22 = _unit_lower_inv_rec(L[h:, h:], bs)
-    W21 = -jnp.matmul(
-        W22,
-        jnp.matmul(L[h:, :h], W11, preferred_element_type=L.dtype),
-        preferred_element_type=L.dtype,
-    )
-    top = jnp.concatenate([W11, jnp.zeros((h, n - h), dtype=L.dtype)], axis=1)
-    bottom = jnp.concatenate([W21, W22], axis=1)
-    return jnp.concatenate([top, bottom], axis=0)
-
-
-def unit_lower_inv_blocked(L: jax.Array, block_size: int = 128) -> jax.Array:
-    """Inverse of a unit lower-triangular matrix (recursive halving)."""
-    n = L.shape[-1]
-    bs = min(block_size, n)
-    if n % bs != 0:
-        # callers pass LDL-padded matrices (already a multiple of the panel
-        # size); pad defensively otherwise
-        npad = _round_up(n, bs)
-        L = jnp.pad(L, ((0, npad - n), (0, npad - n)))
-        ids = lax.broadcasted_iota(jnp.int32, (npad, npad), 0)
-        eye_pad = jnp.logical_and(
-            ids >= n, ids == lax.broadcasted_iota(jnp.int32, (npad, npad), 1)
-        )
-        L = jnp.where(eye_pad, 1.0, L)
-        return unit_lower_inv_blocked(L, bs)[:n, :n]
-    return _unit_lower_inv_rec(L, bs)
-
-
-def ldl_winv(LD: jax.Array, block_size: int = 128):
+def ldl_winv(LD: jax.Array):
     """(W, d) with W = L^{-1} from a packed LDL factor.
 
     K^{-1} x = W^T (W x / d): two thin matmuls per application — the
-    production TPU back-solve path (XLA's triangular_solve is latency-bound
-    on TPU).  Cheaper than materializing K^{-1} whenever the total number of
-    right-hand-side columns per factorization is below n.
+    production back-solve path.  Cheaper than materializing K^{-1} whenever
+    the total number of right-hand-side columns per factorization is below
+    n.
     """
-    W = unit_lower_inv_blocked(
-        jnp.tril(LD, -1) + jnp.eye(LD.shape[-1], dtype=LD.dtype), block_size
-    )
+    W = unit_lower_inv(jnp.tril(LD, -1) + jnp.eye(LD.shape[-1], dtype=LD.dtype))
     return W, jnp.diagonal(LD)
 
 
@@ -301,9 +192,7 @@ def winv_apply(W: jax.Array, d: jax.Array, b: jax.Array) -> jax.Array:
 
 def ldl_inverse(LD: jax.Array, d: jax.Array) -> jax.Array:
     """Explicit K^{-1} = L^{-T} D^{-1} L^{-1} from a packed LDL factor."""
-    W = unit_lower_inv_blocked(
-        jnp.tril(LD, -1) + jnp.eye(LD.shape[-1], dtype=LD.dtype)
-    )
+    W = unit_lower_inv(jnp.tril(LD, -1) + jnp.eye(LD.shape[-1], dtype=LD.dtype))
     d_safe = jnp.where(jnp.abs(d) > 0, d, 1.0)
     return jnp.matmul(
         W.T, W / d_safe[:, None], preferred_element_type=LD.dtype
@@ -316,8 +205,7 @@ def _ldl_recursive(A: jax.Array, bs: int) -> jax.Array:
     Every level splits at a block-size multiple: all slices are static, the
     trailing update is one static-shape matmul per level, and total memory
     traffic is O(n^2 log n) — unlike a panel loop, which rewrites the whole
-    loop-carried matrix once per panel (O(n^2 * n/bs) traffic; the dominant
-    cost in practice on TPU).
+    loop-carried matrix once per panel (O(n^2 * n/bs) traffic).
     """
     n = A.shape[-1]
     if n <= bs:
@@ -332,7 +220,7 @@ def _ldl_recursive(A: jax.Array, bs: int) -> jax.Array:
     F11 = _ldl_recursive(A11, bs)
     d1 = jnp.diagonal(F11)
     L11 = jnp.tril(F11, -1) + jnp.eye(h, dtype=A.dtype)
-    W11 = _unit_lower_inv_rec(L11, bs)
+    W11 = unit_lower_inv(L11)
     # X = A21 L11^{-T} = L21 D1 ; L21 = X D1^{-1}
     X = jnp.matmul(A21, W11.T, preferred_element_type=A.dtype)
     d1_safe = jnp.where(jnp.abs(d1) > 0, d1, 1.0)
@@ -381,8 +269,8 @@ def _ldl_unrolled(A: jax.Array, bs: int) -> jax.Array:
 def _ldl_fori(A: jax.Array, bs: int) -> jax.Array:
     """Right-looking panel-loop LDL^T (lax.fori_loop over panels).
 
-    Measured faster end-to-end than the recursive form on TPU: XLA pipelines
-    the loop body well and the full-width trailing updates stay on the MXU.
+    The default of :func:`ldl_factor`; the recursive and unrolled forms are
+    the alternatives (not yet compared on the GPU).
     """
     npad = A.shape[-1]
     nb = npad // bs
@@ -398,7 +286,7 @@ def _ldl_fori(A: jax.Array, bs: int) -> jax.Array:
         P = lax.dynamic_slice(A, (0, off), (npad, bs))
         below = row_ids >= off + bs  # (npad, 1)
         # X = P_below @ Lkk^{-T}  (X holds L_panel * D_k); panel solve via
-        # explicit small inverse (MXU), not XLA's triangular_solve
+        # the explicit small inverse (one matmul over the full column panel)
         X = jnp.matmul(P, unit_lower_inv(Lkk).T, preferred_element_type=A.dtype)
         X = jnp.where(below, X, 0.0)
         dk_safe = jnp.where(jnp.abs(dk) > 0, dk, 1.0)
@@ -406,7 +294,7 @@ def _ldl_fori(A: jax.Array, bs: int) -> jax.Array:
         newcols = jnp.where(below, Lpan, P)
         newcols = lax.dynamic_update_slice(newcols, Akk_f, (off, 0))
         A = lax.dynamic_update_slice(A, newcols, (0, off))
-        # trailing update (MXU); operands masked below the panel
+        # trailing update (matmul); operands masked below the panel
         A = A - jnp.matmul(Lpan, X.T, preferred_element_type=A.dtype)
         return A
 
@@ -421,10 +309,10 @@ def ldl_factor(A: jax.Array, block_size: int = 128, algorithm: str = "fori"):
     ----------
     A: (n, n) symmetric array.  Only the lower triangle is referenced
        logically, but the full (symmetric) matrix should be supplied.
-    block_size: panel width.  128 matches the TPU lane width/MXU tile.
-    algorithm: "fori" (panel loop; default, fastest measured on TPU) or
-        "recursive" (static halving; less memory traffic on paper, but the
-        pipelined panel loop wins end-to-end).
+    block_size: panel width (at most 128 keeps the panel step on the
+        Triton kernel on the GPU).
+    algorithm: "fori" (panel loop; default), "recursive" (static halving;
+        less memory traffic on paper) or "unrolled".
 
     Returns
     -------
@@ -519,7 +407,7 @@ def ldl_inertia(d: jax.Array, n: int | None = None, zero_tol: float = 0.0):
 
 # ---------------------------------------------------------------------------
 # Batched variants: one XLA computation factors/solves all diagonal blocks.
-# This is the TPU-native replacement for the reference's per-rank loop over
+# This replaces the reference's per-rank loop over
 # sub_solver.do_numeric_factorization
 # (/root/reference/parapint/linalg/schur_complement/mpi_explicit_schur_complement.py:292-299).
 # ---------------------------------------------------------------------------
@@ -529,74 +417,18 @@ def _bmm(a, b):
     return jnp.einsum("nij,njk->nik", a, b, preferred_element_type=a.dtype)
 
 
-def _unit_lower_inv_b(L: jax.Array) -> jax.Array:
-    """Batched inverse of unit lower-triangular (N, b, b): static-halving
-    recursion over an exact-substitution base (see unit_lower_inv's
-    stability note — the former batched Neumann doubling had the same
-    instability)."""
-    n = L.shape[-1]
-    if n <= _SUBST_BASE:
-        return _unit_lower_inv_subst(L)
-    h = max(_SUBST_BASE, ((n // 2 + 7) // 8) * 8)
-    if h >= n:
-        h = n - _SUBST_BASE
-    W11 = _unit_lower_inv_b(L[:, :h, :h])
-    W22 = _unit_lower_inv_b(L[:, h:, h:])
-    W21 = -_bmm(W22, _bmm(L[:, h:, :h], W11))
-    Nb = L.shape[0]
-    top = jnp.concatenate(
-        [W11, jnp.zeros((Nb, h, n - h), dtype=L.dtype)], axis=2
-    )
-    bottom = jnp.concatenate([W21, W22], axis=2)
-    return jnp.concatenate([top, bottom], axis=1)
-
-
-def _use_slab_kernel(b: int) -> bool:
-    """Panel-kernel algorithm selection (overridable via PT_PANEL_ALGO).
-
-    "slab" = the round-4 two-level kernel (slab-local serial steps + rank-8
-    MXU trailing updates; see pallas_ldl._make_slab_kernel), requires
-    b % 8 == 0; "slab2" = same with rank-2 micro steps (two columns per
-    dependent-chain step); "column" = the round-2/3 per-column SSA kernel.
-
-    Default: slab — chip-calibrated at 1.49-1.65 ms/call (winv, b=128,
-    B=64) vs 2.62 for the per-column form (tools/kernel_lab.py panels,
-    round 4; amortized in-dispatch loops + forced readbacks).
-
-    NOTE: read at TRACE time — set the env var BEFORE the first
-    factorization of a given shape; later changes do not invalidate the
-    jit cache (compiled executables keep the kernel they traced with).
-    """
-    import os
-
-    algo = os.environ.get("PT_PANEL_ALGO", "slab")
-    return algo in ("slab", "slab2") and b % 8 == 0
-
-
-def _slab_rank2() -> bool:
-    import os
-
-    return os.environ.get("PT_PANEL_ALGO", "slab") == "slab2"
-
-
 def _panel_factor_batch(Akk: jax.Array) -> jax.Array:
     """Batched base-case panel factorization (N, b, b) -> packed.
 
-    Dispatches to the chunk-batched Pallas kernel (the batch axis INSIDE
-    one kernel instance — the gridded per-panel form serializes on the
-    single TensorCore and leaves the VPU idle); falls back to the vmapped
-    XLA loop elsewhere."""
+    The GPU backend runs the Triton panel kernel (ops/pallas_ldl.py) for
+    the widths and dtypes of its dispatch rule; other backends and shapes run
+    the XLA slab loop, or the per-column loop when b is not a multiple of 8."""
     from parapint_tpu.ops import pallas_ldl
 
-    if (
-        Akk.dtype == jnp.float32
-        and Akk.shape[-1] <= 128
-        and pallas_ldl.available()
-    ):
-        if _use_slab_kernel(Akk.shape[-1]):
-            return pallas_ldl.ldl_panels_slab(Akk, rank2=_slab_rank2())
-        return pallas_ldl.ldl_panels_batched(Akk)
-    if Akk.shape[-1] % 8 == 0:
+    b = Akk.shape[-1]
+    if pallas_ldl.use_kernel(b, Akk.dtype):
+        return pallas_ldl.ldl_panels(Akk)
+    if b % 8 == 0:
         return _ldl_slab_batched_xla(Akk)
     return jax.vmap(_ldl_unblocked)(Akk)
 
@@ -606,17 +438,15 @@ def ldl_factor_batched(A: jax.Array, block_size: int = 128):
     """Natively-batched right-looking LDL^T: (N, n, n) -> (LD, d).
 
     Semantically identical to ``vmap(ldl_factor)`` but written batch-first
-    so the sequential panel factorizations run ONE chunk-batched Pallas
-    kernel per panel step instead of N gridded kernels (the dominant cost
-    of the vmapped form on TPU: the grid serializes on the TensorCore).
-    All trailing updates are batched matmuls on static slices of the
-    shrinking trailing submatrix.
+    so each sequential panel step is ONE batched panel factorization over
+    all N blocks.  All trailing updates are batched matmuls on static
+    slices of the shrinking trailing submatrix.
     """
     N, n, _ = A.shape
-    # snap the panel width UP to a multiple of 8: the slab kernel needs
+    # snap the panel width UP to a multiple of 8: the XLA slab loop needs
     # b % 8 == 0, and odd tile sizes (e.g. the chain SC's ns=49 tiles)
-    # would otherwise fall back to the slower per-column kernel; the extra
-    # rows are identity padding (excluded from inertia via the n argument)
+    # would otherwise take the slower per-column loop; the extra rows are
+    # identity padding (excluded from inertia via the n argument)
     bs = min(block_size, _round_up(max(8, n), 8))
     npad = _round_up(max(n, 1), bs)
     dt = A.dtype
@@ -631,10 +461,8 @@ def ldl_factor_batched(A: jax.Array, block_size: int = 128):
     panels = []
     T = A
     for k in range(nb):
-        Fkk = _panel_factor_batch(T[:, :bs, :bs])
+        Fkk, Winv = _panel_factor_batch_winv(T[:, :bs, :bs])
         dk = jnp.diagonal(Fkk, axis1=1, axis2=2)  # (N, bs)
-        Lkk = jnp.tril(Fkk, -1) + jnp.eye(bs, dtype=dt)[None]
-        Winv = _unit_lower_inv_b(Lkk)
         rest = T[:, bs:, :bs]  # (N, r, bs)
         X = jnp.einsum(
             "nij,nkj->nik", rest, Winv, preferred_element_type=dt
@@ -655,34 +483,25 @@ def ldl_factor_batched(A: jax.Array, block_size: int = 128):
 def _panel_factor_batch_winv(Akk: jax.Array):
     """Batched base-case panel factorization + panel inverse W = L^{-1}.
 
-    Pallas path computes W with one extra in-VMEM rank-1 per column step;
-    the XLA fallback pairs the unblocked loop with Neumann doubling."""
+    The Triton kernel accumulates W alongside the factor for panels up to
+    64 wide; otherwise the unit-lower factor is inverted by one batched
+    triangular solve."""
     from parapint_tpu.ops import pallas_ldl
 
-    if (
-        Akk.dtype == jnp.float32
-        and Akk.shape[-1] <= 128
-        and pallas_ldl.available()
-    ):
-        if _use_slab_kernel(Akk.shape[-1]):
-            # the slab kernel has no per-column live-value stack: no
-            # winv_max_chunk ceiling
-            return pallas_ldl.ldl_panels_slab_winv(Akk, rank2=_slab_rank2())
-        if pallas_ldl.winv_max_chunk(Akk.shape[-1]) >= 1:
-            return pallas_ldl.ldl_panels_batched_winv(Akk)
-    if Akk.shape[-1] % 8 == 0:
-        F = _ldl_slab_batched_xla(Akk)
-    else:
-        F = jax.vmap(_ldl_unblocked)(Akk)
-    Lkk = jnp.tril(F, -1) + jnp.eye(Akk.shape[-1], dtype=Akk.dtype)
-    return F, _unit_lower_inv_b(Lkk)
+    b = Akk.shape[-1]
+    if pallas_ldl.use_kernel(b, Akk.dtype) and pallas_ldl.w_in_kernel(b):
+        return pallas_ldl.ldl_panels(Akk, with_w=True)
+    F = _panel_factor_batch(Akk)
+    Lkk = jnp.tril(F, -1) + jnp.eye(b, dtype=Akk.dtype)
+    return F, unit_lower_inv(Lkk)
 
 
 def _winv_from_leaves(LD: jax.Array, leaves, lo: int, hi: int, bs: int):
     """Batched W = L^{-1} of LD[:, lo:hi, lo:hi] by recursive halving, with
     the diagonal-panel inverses supplied (``leaves[k]`` inverts panel k).
-    Same recursion as :func:`_unit_lower_inv_rec` but with zero base-case
-    cost — the panels were inverted during the factor sweep."""
+    Same recursion as :func:`unit_lower_inv`, split at panel boundaries,
+    with zero base-case cost — the panels were inverted during the factor
+    sweep."""
     n = hi - lo
     if n <= bs:
         return leaves[lo // bs]
@@ -709,16 +528,15 @@ def ldl_factor_winv_batched(A: jax.Array, block_size: int = 128):
     (LD, d, W) with all three (N, npad, npad)/(N, npad).
 
     Fuses the factor sweep with the inverse construction: the panel
-    inverses (needed anyway for the panel solves) come straight out of the
-    Pallas kernel, the global W is assembled from them by batched recursive
-    halving, and the Neumann-doubling chains of the separate
-    ``ldl_factor_batched`` + ``ldl_winv`` pipeline disappear entirely.
+    inverses (needed anyway for the panel solves) come out of the panel
+    step, the global W is assembled from them by batched recursive
+    halving, and the separate ``ldl_winv`` inversion disappears.
     """
     N, n, _ = A.shape
-    # snap the panel width UP to a multiple of 8: the slab kernel needs
+    # snap the panel width UP to a multiple of 8: the XLA slab loop needs
     # b % 8 == 0, and odd tile sizes (e.g. the chain SC's ns=49 tiles)
-    # would otherwise fall back to the slower per-column kernel; the extra
-    # rows are identity padding (excluded from inertia via the n argument)
+    # would otherwise take the slower per-column loop; the extra rows are
+    # identity padding (excluded from inertia via the n argument)
     bs = min(block_size, _round_up(max(8, n), 8))
     npad = _round_up(max(n, 1), bs)
     dt = A.dtype

@@ -41,7 +41,7 @@ class LinalgOptions:
 
     ``solver`` holds a :class:`parapint_tpu.linalg.LinearSolver`.  The
     reference's memory-reallocation retry loop maps to workspace re-tiling
-    here; dense TPU factorizations allocate statically, so reallocation is a
+    here; dense device factorizations allocate statically, so reallocation is a
     no-op for the built-in solvers but the retry protocol is preserved.
     """
 

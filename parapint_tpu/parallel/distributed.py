@@ -2,12 +2,12 @@
 
 The reference proves its communication layer under real multi-process MPI
 (`mpirun -np {2,3,4}` oversubscribed on one CI node,
-/root/reference/.github/workflows/main_ci.yml:33-41).  The TPU-native
+/root/reference/.github/workflows/main_ci.yml:33-41).  The JAX
 analogue is JAX's multi-controller runtime: every process calls
 :func:`initialize` (a ``jax.distributed.initialize`` wrapper), after which
 ``jax.devices()`` spans ALL processes and a :func:`global_mesh` built over
-it makes ``shard_map`` collectives run across process boundaries (ICI/DCN
-on real pods, TCP on CPU test runs) — the same solver code, unchanged.
+it makes ``shard_map`` collectives run across process boundaries (NCCL
+between GPUs, TCP on CPU test runs) — the same solver code, unchanged.
 
 Launching (the ``mpirun`` analogue):
 
@@ -20,8 +20,9 @@ with each process calling::
     distributed.initialize("host0:1234", num_processes=2, process_id=<i>)
     mesh = distributed.global_mesh("blocks")
 
-On TPU pods (GKE/GCE), ``initialize()`` with no arguments picks up the
-cluster environment automatically.  For CPU-based testing, set
+On a managed cluster, ``initialize()`` with no arguments picks up the
+cluster environment; elsewhere pass the coordinator address, process
+count and process id.  For CPU-based testing, set
 ``local_device_count`` to emulate several devices per process — the
 2-process test in tests/test_multiprocess.py is this package's equivalent
 of the reference's mpirun CI job.
@@ -46,7 +47,7 @@ def initialize(
     any other JAX operation).
 
     Parameters mirror ``jax.distributed.initialize``; all-None auto-detects
-    the cluster environment (TPU pods).  ``local_device_count`` forces the
+    the cluster environment (managed clusters).  ``local_device_count`` forces the
     number of local (CPU) devices — test/CI use.
     """
     import jax

@@ -6,7 +6,7 @@ path on the Burgers family
 (/root/reference/parapint/examples/burgers.py:14-20, whose --nfe_x scaling
 knob makes the dense path infeasible beyond ~100).
 
-Also the triangular-inverse stability regression (round-5 fix): the
+Also the triangular-inverse stability regression: a former
 Neumann-doubling unit_lower_inv silently lost all digits on matrices whose
 nilpotent powers grow before annihilating — e.g. the squared 1D Laplacian
 (biharmonic-like operators, exactly what PDE-chain Schur complements look
@@ -26,12 +26,7 @@ from parapint_tpu.linalg.banded_schur import (
 )
 from parapint_tpu.linalg.schur import BlockRhs
 from parapint_tpu.ops.banded import sym_band_to_tridiag_tiles, sym_banded_matvec
-from parapint_tpu.ops.ldl import (
-    _unit_lower_inv_b,
-    ldl_factor,
-    ldl_solve,
-    unit_lower_inv,
-)
+from parapint_tpu.ops.ldl import ldl_factor, ldl_solve, unit_lower_inv
 
 
 def _biharmonic(n):
@@ -57,7 +52,7 @@ class TestTriangularInverseStability:
         )
         W = np.asarray(unit_lower_inv(jnp.asarray(L)))
         assert np.abs(W - Wref).max() < 1e-11
-        Wb = np.asarray(_unit_lower_inv_b(jnp.asarray(L)[None, ...]))[0]
+        Wb = np.asarray(unit_lower_inv(jnp.asarray(L)[None, ...]))[0]
         assert np.abs(Wb - Wref).max() < 1e-11
 
     def test_ldl_solve_biharmonic(self):
@@ -130,7 +125,7 @@ class TestThomas:
 
 
 class TestRound5Primitives:
-    """The trace-driven round-5 kernels: one-hot permutation (bit-exact
+    """The trace-driven kernels: one-hot permutation (bit-exact
     claim), tile-form block-tridiagonal matvec, and the scatter-free skew
     band->tile construction, each against a dense oracle."""
 
@@ -332,7 +327,7 @@ class TestBandedInterface:
 
 
 class TestShardedBanded:
-    """Sharded (multi-chip) banded path: the MA27 envelope combined with the
+    """Sharded (multi-device) banded path: the MA27 envelope combined with the
     MPI Schur-complement decomposition (reference
     mpi_explicit_schur_complement.py:128-452) — block-Thomas per shard,
     psum-reduced SC, replicated coupling factor."""

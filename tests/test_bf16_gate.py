@@ -1,4 +1,4 @@
-"""bf16 W-storage auto-gate (round 5): with ``w_store_dtype=bf16`` the
+"""bf16 W-storage auto-gate: with ``w_store_dtype=bf16`` the
 back-solve applies read half the HBM bytes; on kappa-hard families the
 bf16 apply error exceeds the adaptive-refinement contraction threshold and
 the solve previously reported status=error (the reference's graceful

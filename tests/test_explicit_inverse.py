@@ -1,7 +1,7 @@
 """Explicit-inverse (matmul-only) solver mode vs the packed-factor mode.
 
-The TPU production path computes K^{-1} = L^{-T} D^{-1} L^{-1} with
-MXU-only matmuls (Neumann-doubling triangular inversion) and recovers
+The production path computes K^{-1} = L^{-T} D^{-1} L^{-1} with
+matmuls only (recursive-halving triangular inversion) and recovers
 direct-solve accuracy with iterative refinement; results must match the
 triangular-solve path to tight tolerance on every solver.
 """

@@ -63,7 +63,7 @@ def test_batched():
 
 
 def test_oracle_for_unpivoted_kernel():
-    """Cross-check the TPU LDL kernel against the pivoted host factorization
+    """Cross-check the device LDL kernel against the pivoted host factorization
     on a well-conditioned quasi-definite system (where both must agree)."""
     from parapint_tpu.ops.ldl import ldl_factor, ldl_solve
 
@@ -75,8 +75,8 @@ def test_oracle_for_unpivoted_kernel():
     b = rng.standard_normal(42)
     x_host = np.asarray(solver.solve(fact, jnp.asarray(b)))
     LD, d = ldl_factor(jnp.asarray(K), block_size=16)
-    x_tpu = np.asarray(ldl_solve(LD, jnp.asarray(b)))
-    assert np.allclose(x_host, x_tpu, atol=1e-9)
+    x_dev = np.asarray(ldl_solve(LD, jnp.asarray(b)))
+    assert np.allclose(x_host, x_dev, atol=1e-9)
 
 
 def test_singular_detection():

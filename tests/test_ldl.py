@@ -117,7 +117,7 @@ def test_factor_winv_batched_matches_separate(n, bs):
     rng = np.random.default_rng(5)
     A = np.stack([kkt_like(n - 2, 2, rng, c_reg=1e-6) for _ in range(4)])
     LD_ref, _ = ldl_factor_batched(jnp.asarray(A), block_size=bs)
-    W_ref, d_ref = jax.vmap(lambda ld: ldl_winv(ld, bs))(LD_ref)
+    W_ref, d_ref = jax.vmap(ldl_winv)(LD_ref)
     LD, d, W = ldl_factor_winv_batched(jnp.asarray(A), block_size=bs)
     np.testing.assert_allclose(np.asarray(d), np.asarray(d_ref), rtol=1e-12)
     np.testing.assert_allclose(np.asarray(W), np.asarray(W_ref), rtol=1e-10, atol=1e-10)

@@ -1,8 +1,9 @@
 """Per-phase breakdown of one IP iteration at the benchmark shape.
 
 Times each phase of the fused Burgers-64-block iteration separately (each
-jitted alone, blocking readbacks) on the current backend, so the top cost
-is attackable (VERDICT r02 item 3).  Phases mirror the fused step:
+jitted alone; median of 5 warm calls, each ended by
+``jax.block_until_ready``) on the current backend.  Phases mirror the fused
+step:
 
   eval_ad       one AD sweep (f32 Hessian/Jacobians, f64 grads/residuals)
   convergence   residual norms from the AD bundle
@@ -27,12 +28,7 @@ import jax
 import jax.numpy as jnp
 
 
-from parapint_tpu.utils.profile import dispatch_floor, timed_fused
-
-
-def timed(f, *a, reps=5):
-    """Shared fused-readback timing (parapint_tpu.utils.profile)."""
-    return timed_fused(f, *a, reps=reps)
+from parapint_tpu.utils.profile import timed
 
 
 def main():
